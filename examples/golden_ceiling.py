@@ -4,7 +4,7 @@ recoverable at a near-reference step budget?
 Production replays cap PTEQ at 8k steps (RESULTS.md); the reference's own
 budget is 5e7 ladder steps of 10 proposals (decoders.py:25).  This script
 runs ONE high-budget PTEQ pass over all 2603 hard d=5 toric syndromes
-(default cap 320k steps = 40x production; the sweep/fused engines do
+(default cap 320k steps = 40x production; the sweep/kernel engines do
 iters full lattice sweeps per step, so the proposal budget is within ~2x
 of the reference's) and prints recovery %, convergence %, and wall time,
 plus MWPM / eMWPM context rows.

@@ -25,7 +25,7 @@ def main():
     ap.add_argument("--limit", type=int, default=256)
     ap.add_argument("--steps", type=int, default=8000)
     ap.add_argument("--droplets", type=int, default=8)
-    ap.add_argument("--engine", default="fused")
+    ap.add_argument("--engine", default="auto")
     args = ap.parse_args()
 
     from mcmc_qec_tpu.pipeline import load_golden_corpus

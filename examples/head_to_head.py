@@ -14,9 +14,9 @@ independent reference runs on the same syndromes).
 Run:  python examples/head_to_head.py -n 12 --out /tmp/h2h.json
 
 Phases (round 5, n=64 runs): ``--phase ref`` runs only the interpreted
-reference side (hours of pure CPU; pair with JAX_PLATFORMS=cpu so the TPU
+reference side (hours of pure CPU; pair with JAX_PLATFORMS=cpu so the GPU
 stays free) and dumps its distributions to --ref-cache; ``--phase ours``
-loads that cache, runs our decoders on the TPU, and writes the final
+loads that cache, runs our decoders on the GPU, and writes the final
 comparison.  ``--phase all`` (default) does both in one process.
 """
 
@@ -87,7 +87,7 @@ def main():
     args = ap.parse_args()
 
     if args.phase == "ref":
-        # interpreted-reference phase is pure CPU — leave the TPU free for
+        # interpreted-reference phase is pure CPU — leave the GPU free for
         # concurrent science runs (state sampling/warm starts don't need it)
         import jax
 
@@ -218,7 +218,7 @@ def main():
             print(f"ref phase done -> {args.ref_cache}", flush=True)
             return
 
-    print("this framework: PTEQ (production fused engine)...", flush=True)
+    print("this framework: PTEQ (default engine)...", flush=True)
     cfg = PTEQConfig(engine="auto", max_steps=48000, window=600, iters=2,
                      energy_chunk=12)
     ours_pteq = PTEQ(spec, states, args.p, cfg, seed=1).distribution.astype(float)

@@ -85,7 +85,7 @@ def main():
     print(f"reference {name} run B (self-TV)...", flush=True)
     ref_b = ref_run("B")
 
-    print(f"this framework: {name} (fused engine)...", flush=True)
+    print(f"this framework: {name} (default engine)...", flush=True)
     cfg = PTEQConfig(engine="auto", max_steps=48000, window=600, iters=2,
                      energy_chunk=12)
     if args.alpha is not None:

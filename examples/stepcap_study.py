@@ -55,7 +55,7 @@ def main():
     ap.add_argument("-n", type=int, default=256)
     ap.add_argument("--cap", type=int, default=24000)
     ap.add_argument("--mult", type=int, default=4)
-    ap.add_argument("--engine", default="fused")
+    ap.add_argument("--engine", default="auto")
     ap.add_argument("--window", type=int, default=600)
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)

@@ -14,7 +14,7 @@ finite-size-scaling ansatz
 binomial errors, and report p_th +/- CI from a parametric bootstrap.
 
 Usage:
-  # collect (runs PTEQ on TPU; resumable, appends to --data):
+  # collect (runs PTEQ on the GPU; resumable, appends to --data):
   python examples/threshold_fit.py collect --sizes 5,7,9,11,13 \
       --ps 0.175,0.1825,0.19,0.1975 -n 2048 --data /tmp/thr.json
   # fit:

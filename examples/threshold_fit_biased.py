@@ -10,7 +10,7 @@ in the SAME JSON format as examples/threshold_fit.py, so its ``fit``
 subcommand (finite-size-scaling ansatz + parametric bootstrap) applies
 unchanged:
 
-  # collect (TPU; resumable, appends):
+  # collect (GPU; resumable, appends):
   python examples/threshold_fit_biased.py collect --eta 10 \
       --sizes 5,7,9,11,13 --ps 0.28,0.30,... -n 2048 --data thr_eta10.json
   # fit (shared machinery):

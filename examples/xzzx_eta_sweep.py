@@ -30,7 +30,7 @@ def main():
     ap.add_argument("--ps", default="0.05,0.10,0.15,0.20,0.25,0.30")
     ap.add_argument("-n", type=int, default=128)
     ap.add_argument("--max-steps", type=int, default=6000)
-    ap.add_argument("--engine", default="fused")
+    ap.add_argument("--engine", default="auto")
     args = ap.parse_args()
 
     spec = get_spec("xzzx", args.size)

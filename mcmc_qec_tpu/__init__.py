@@ -1,38 +1,34 @@
-"""mcmc_qec_tpu: a TPU-native MCMC quantum-error-correction decoding framework.
+"""mcmc_qec_tpu: a batched MCMC quantum-error-correction decoding framework.
 
 A ground-up JAX/XLA/Pallas redesign with the capability surface of the
 reference research code (QEC-project-2020/MCMC-QEC-toric-RL): four surface
 code families (toric/planar/rotated/xzzx), the full MCMC decoder suite
 (PTEQ/ST/STDC/STRC/PTDC/PTRC plus biased/alpha variants), MWPM warm starts
 backed by a native C++ exact matching solver, and a batched data-generation
-pipeline that shards syndromes over a TPU device mesh.
+pipeline that decodes whole syndrome batches per device step.
 """
+
+import os
+
+# fixed in-checkout default: the cache key includes the path, so a cache
+# that moves never hits
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
 
 def _enable_compilation_cache() -> None:
     """Persistent XLA compilation cache.  The decoder programs are large
-    (a full PTEQ window or STDC decode takes the compiler 10s-6min per
-    shape); cached binaries reload in well under a second, so cold-start
-    cost is paid once per machine instead of once per process.  Set
-    ``MCMC_QEC_CACHE_DIR`` to a path to relocate it, or to ``0``/``off``
-    to disable; an explicit user ``jax_compilation_cache_dir`` wins."""
-    import os
-
-    d = os.environ.get("MCMC_QEC_CACHE_DIR")
-    if d is not None and d.strip().lower() in ("", "0", "off", "none"):
+    (a full PTEQ window or STDC decode takes the compiler seconds to
+    minutes per shape); cached binaries reload in well under a second.
+    JAX reads ``JAX_COMPILATION_CACHE_DIR`` itself when it is set; otherwise
+    the cache lives in ``DEFAULT_CACHE_DIR`` inside the checkout.  Disable
+    it with ``jax.config.update("jax_enable_compilation_cache", False)``."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    try:
-        import jax
+    import jax
 
-        if jax.config.jax_compilation_cache_dir:
-            return
-        d = d or os.path.join(
-            os.path.expanduser("~"), ".cache", "mcmc_qec_tpu", "xla"
-        )
-        os.makedirs(d, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", d)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # never block import on cache plumbing
-        pass
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
 
 
 _enable_compilation_cache()

@@ -37,7 +37,7 @@ class SampleStream(NamedTuple):
 
 
 def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 5,
-                 engine: str = "literal", equal_betas: bool = False):
+                 engine: str = "literal", interpret: bool = False):
     """Build ``sample(states, key, betas) -> (states, SampleStream)``.
 
     Each of ``steps`` recording steps runs ``iters_per_step`` Metropolis
@@ -48,20 +48,21 @@ def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 5,
     engine="literal": one update = one random-stabilizer proposal (the
     reference's dynamics — but a long *sequential* dependency chain, so the
     device is latency-bound).  engine="sweep": one update = one colored
-    sweep = n_stabs parallel proposals (the TPU-native path: ~n_stabs x
-    fewer sequential steps per recorded sample and dense vector math; same
-    stationary distribution, more decorrelated samples).
+    sweep = n_stabs parallel proposals (~n_stabs x fewer sequential steps
+    per recorded sample and dense vector math; same stationary
+    distribution, more decorrelated samples).  engine="kernel": the same
+    sweeps in one Pallas kernel call per recorded step (``interpret`` runs
+    it through the Pallas interpreter off the GPU).
     """
     from ..ops.engines import resolve_engine
 
-    engine = resolve_engine(engine, "counting")
+    engine = resolve_engine(engine, "counting", spec)
     if engine == "sweep":
         from ..ops.dense_sweep import make_dense_sweep
 
         sweep = make_dense_sweep(spec)
 
-        def update(states, key, betas, p_logical=0.0):
-            del p_logical
+        def update(states, key, betas):
             def body(s, k):
                 return sweep(s, k, betas), None
 
@@ -69,24 +70,10 @@ def make_sampler(spec: CodeSpec, steps: int, iters_per_step: int = 5,
             states, _ = jax.lax.scan(body, states, ks)
             return states
 
-    elif engine == "pallas":
-        if jax.default_backend() != "tpu":
-            # compiled Pallas is TPU-only; same math via the dense engine
-            return make_sampler(spec, steps, iters_per_step, engine="sweep")
-        from ..ops.pallas_sweep import make_pallas_sweep
+    elif engine == "kernel":
+        from ..ops.sweep_kernel import make_kernel_sweep
 
-        # equal_betas (uniform sampling chain, e.g. scalar-p depolarizing):
-        # single total-count contraction per color instead of three
-        _, pallas_raw = make_pallas_sweep(spec, n_sweeps=iters_per_step,
-                                          equal_betas=equal_betas)
-
-        def update(states, key, betas, p_logical=0.0):
-            del p_logical
-            batch_shape = states.shape[:-1]
-            flat = states.reshape(-1, states.shape[-1])
-            seed = jax.random.randint(key, (), 0, 2**31 - 1)
-            out = pallas_raw(flat, seed, betas)
-            return out.reshape(batch_shape + (states.shape[-1],))
+        update = make_kernel_sweep(spec, iters_per_step, interpret=interpret)
 
     else:
         update = make_chain_update(spec, iters_per_step)

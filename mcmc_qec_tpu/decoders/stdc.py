@@ -1,6 +1,6 @@
 """STDC: single-temperature direct counting decoders.
 
-TPU-native redesign of STDC / STDC_general_noise / STDC_general_noise_shortest
+Batched redesign of STDC / STDC_general_noise / STDC_general_noise_shortest
 / STDC_Nall_n_alpha (decoders.py:236-581): for every syndrome, all
 (class x droplet) chains run in one batched Metropolis kernel at the
 sampling temperature, visits are recorded as on-device content keys, and
@@ -39,8 +39,7 @@ from .counting import make_sampler, z_direct_count
 @functools.lru_cache(maxsize=None)
 def _get_stdc_fn(spec: CodeSpec, droplets: int, steps: int, randomize: bool,
                  shortest_mode: str, conv_mult: float = 0.0,
-                 engine: str = "literal", with_stats: bool = False,
-                 equal_betas: bool = False):
+                 engine: str = "literal", with_stats: bool = False):
     """shortest_mode: "off" (full Z), "only" (shortest-truncated Z) or
     "both" (full + shortest from one sampled stream, decoders.py:490-505).
     Bools are accepted for backward compatibility (False="off", True="only").
@@ -51,10 +50,9 @@ def _get_stdc_fn(spec: CodeSpec, droplets: int, steps: int, randomize: bool,
     direct counting."""
     if isinstance(shortest_mode, bool):
         shortest_mode = "only" if shortest_mode else "off"
-    engine = resolve_engine(engine, "counting")
+    engine = resolve_engine(engine, "counting", spec)
     iters = 5 if engine == "literal" else 1
-    sampler = make_sampler(spec, steps, iters_per_step=iters, engine=engine,
-                           equal_betas=equal_betas)
+    sampler = make_sampler(spec, steps, iters_per_step=iters, engine=engine)
 
     def run(class_states, key, betas_sampling, betas_error):
         # class_states: (B, K, nq)
@@ -124,7 +122,7 @@ def _get_stdc_fn(spec: CodeSpec, droplets: int, steps: int, randomize: bool,
 def _get_stdc_stream_fn(spec: CodeSpec, droplets: int, steps: int,
                         randomize: bool, shortest_mode: str,
                         conv_mult: float, engine: str, with_stats: bool,
-                        equal_betas: bool, capacity: int, window: int):
+                        capacity: int, window: int):
     """Streaming (bounded-memory) variant of ``_get_stdc_fn``: instead of
     materializing the (B, K, droplets*steps) sample stream in HBM, every
     window of samples is sort-merged into a per-(B, K) bounded buffer of
@@ -136,7 +134,7 @@ def _get_stdc_stream_fn(spec: CodeSpec, droplets: int, steps: int,
     dropped (see streaming.py's invariant)."""
     if isinstance(shortest_mode, bool):
         shortest_mode = "only" if shortest_mode else "off"
-    engine = resolve_engine(engine, "counting")
+    engine = resolve_engine(engine, "counting", spec)
     iters = 5 if engine == "literal" else 1
     from .counting import _weighted_length
     from .streaming import logz_from_stream, streaming_scan
@@ -155,7 +153,7 @@ def _get_stdc_stream_fn(spec: CodeSpec, droplets: int, steps: int,
         from .counting import make_sampler
 
         sampler = make_sampler(spec, window, iters_per_step=iters,
-                               engine=engine, equal_betas=equal_betas)
+                               engine=engine)
 
         def chunk(states, k):
             states, stream = sampler(states, k, betas_sampling)
@@ -226,10 +224,6 @@ def stdc_run(
     stream_window: Optional[int] = None,
 ):
     mode = shortest_mode or ("only" if shortest_only else "off")
-    # uniform sampling betas (scalar-p depolarizing chains, the common
-    # case) unlock the sweep kernel's single-contraction fast path
-    bs_np = np.asarray(betas_sampling, np.float32)
-    eq_b = bool(bs_np[0] == bs_np[1] == bs_np[2])
     from .streaming import should_stream
 
     B, K = class_states.shape[0], class_states.shape[1]
@@ -237,13 +231,12 @@ def stdc_run(
     if streaming:
         fn = _get_stdc_stream_fn(
             spec, droplets, steps, randomize, mode, conv_mult, engine,
-            metrics is not None, eq_b, stream_capacity,
+            metrics is not None, stream_capacity,
             stream_window or _pick_stream_window(droplets, steps),
         )
     else:
         fn = _get_stdc_fn(spec, droplets, steps, randomize, mode,
-                          conv_mult, engine, with_stats=metrics is not None,
-                          equal_betas=eq_b)
+                          conv_mult, engine, with_stats=metrics is not None)
     key = jax.random.PRNGKey(seed)
     out = fn(
         jnp.asarray(class_states, jnp.uint8),

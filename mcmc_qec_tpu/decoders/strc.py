@@ -80,13 +80,12 @@ def _get_strc_stream_fn(spec: CodeSpec, droplets: int, steps: int,
     streaming.occupancy_from_stream)."""
     from ..ops.engines import resolve_engine as _resolve
 
-    engine = _resolve(engine, "counting")
+    engine = _resolve(engine, "counting", spec)
     iters = 5 if engine == "literal" else 1
     from .counting import make_sampler
     from .streaming import occupancy_from_stream, streaming_scan
 
-    sampler = make_sampler(spec, window, iters_per_step=iters, engine=engine,
-                           equal_betas=True)
+    sampler = make_sampler(spec, window, iters_per_step=iters, engine=engine)
     nq = spec.nq
 
     def run(class_states, key, betas_sampling, beta_s, beta_e):
@@ -138,13 +137,9 @@ def _get_strc_fn(spec: CodeSpec, droplets: int, steps: int, randomize: bool,
                  conv_mult: float = 0.0, engine: str = "literal"):
     from ..ops.engines import resolve_engine
 
-    engine = resolve_engine(engine, "counting")
+    engine = resolve_engine(engine, "counting", spec)
     iters = 5 if engine == "literal" else 1
-    # STRC always samples with a depolarizing (uniform-beta) chain
-    # (decoders.py:835-949, betas built in strc_run below), so the sweep
-    # kernel's single-contraction fast path is always valid here
-    sampler = make_sampler(spec, steps, iters_per_step=iters, engine=engine,
-                           equal_betas=True)
+    sampler = make_sampler(spec, steps, iters_per_step=iters, engine=engine)
     nq = spec.nq
 
     def run(class_states, key, betas_sampling, beta_s, beta_e):

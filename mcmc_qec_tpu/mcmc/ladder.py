@@ -1,6 +1,6 @@
 """Parallel-tempering ladder with replica exchange, batched over syndromes.
 
-TPU-native redesign of ``Ladder``/``Ladder_biased``/``Ladder_alpha``
+Batched redesign of ``Ladder``/``Ladder_biased``/``Ladder_alpha``
 (src/mcmc.py:49-103, src/mcmc_biased.py:66-124, src/mcmc_alpha.py:77-137):
 the ladder is an array axis, rung temperatures are rows of a (Nc, 3) beta
 table, and one generalized swap rule
@@ -98,6 +98,27 @@ def init_ladder(spec: CodeSpec, init_states: jax.Array, Nc: int) -> LadderState:
     return LadderState(state=jnp.asarray(state, dtype=jnp.uint8), flag=flag, tops0=tops0)
 
 
+def _make_sweeps(spec: CodeSpec, iters: int, engine: str, interpret: bool):
+    """``sweeps(state, key, betas) -> state``: ``iters`` colored sweeps,
+    as an XLA scan (engine "sweep") or one kernel call ("kernel")."""
+    if engine == "kernel":
+        from ..ops.sweep_kernel import make_kernel_sweep
+
+        return make_kernel_sweep(spec, iters, interpret=interpret)
+    from ..ops.dense_sweep import make_dense_sweep
+
+    sweep_fn = make_dense_sweep(spec)
+
+    def sweeps(state, key, betas):
+        def body(s, k):
+            return sweep_fn(s, k, betas), None
+
+        state, _ = jax.lax.scan(body, state, jax.random.split(key, iters))
+        return state
+
+    return sweeps
+
+
 def make_ladder_step(
     spec: CodeSpec,
     Nc: int,
@@ -106,6 +127,7 @@ def make_ladder_step(
     engine: str = "literal",
     top_exact_accept: bool = False,
     exchange: str = "sequential",
+    interpret: bool = False,
 ):
     """Build ``step(ls, key, betas) -> (ls, bottom_eq, bottom_n_xyz,
     swap_acc)`` where ``swap_acc`` is the (B, Nc-1) per-rung-pair accepted
@@ -121,7 +143,9 @@ def make_ladder_step(
     cadence).  engine="sweep": one update = one colored sweep (n_stabs
     parallel proposals) — far better device utilization; the top rung
     additionally runs ``iters`` literal proposals with logical mixing so
-    class transitions keep the reference cadence.
+    class transitions keep the reference cadence.  engine="kernel": the
+    ``iters`` sweeps run in one Pallas kernel call (``interpret`` runs it
+    through the Pallas interpreter off the GPU).
 
     ``top_exact_accept``: set True when the top rung's betas are exactly
     zero (depolarizing p_top=0.75, src/mcmc.py:62-66, and alpha
@@ -146,21 +170,16 @@ def make_ladder_step(
     from ..ops.engines import resolve_engine
 
     if exchange not in ("sequential", "even_odd"):
-        # "none" exists ONLY as a fused-kernel roofline ablation
-        # (ops/pallas_ladder.py) — accepting it here would silently run
-        # the sequential sampler and make cross-engine ablations
-        # incomparable
         raise ValueError(
             f"exchange={exchange!r}: expected 'sequential' or 'even_odd'"
         )
-    engine = resolve_engine(engine, "chain")
+    engine = resolve_engine(engine, "chain", spec)
     update = make_chain_update(spec, iters, include_logical=(p_logical > 0))
     p_log_vec = jnp.zeros((Nc,)).at[-1].set(p_logical)
-    if engine == "sweep":
-        from ..ops.dense_sweep import make_dense_sweep
+    if engine in ("sweep", "kernel"):
         from ..ops.pauli import count_errors_xyz as _cexyz
 
-        sweep_fn = make_dense_sweep(spec)
+        sweeps = _make_sweeps(spec, iters, engine, interpret)
         draws = spec.logical_draws
 
         def _gated_masks(top, key):
@@ -226,12 +245,8 @@ def make_ladder_step(
         k_sweep, k_swap = jax.random.split(key)
 
         # 1) Metropolis on every rung (batched over B and Nc).
-        if engine == "sweep":
-            def body(s, k):
-                return sweep_fn(s, k, betas_j[None, :, :]), None
-
-            ks = jax.random.split(k_sweep, iters)
-            state, _ = jax.lax.scan(body, state, ks)
+        if engine != "literal":
+            state = sweeps(state, k_sweep, betas_j[None, :, :])
             k_top = jax.random.fold_in(k_sweep, 0x707)
             top = top_logical_mix(state[:, -1], k_top, betas_j[-1])
             state = state.at[:, -1].set(top)
@@ -327,6 +342,7 @@ def make_perm_ladder_step(
     iters: int = 10,
     engine: str = "sweep",
     exchange: str = "sequential",
+    interpret: bool = False,
 ):
     """Position-carrying variant of ``make_ladder_step`` for the PT
     counting samplers (PTDC/PTRC, p_logical == 0): instead of physically
@@ -345,10 +361,9 @@ def make_perm_ladder_step(
       rung order through an exact one-hot contraction (uint32 keys split
       into 16-bit halves so the f32 matmul is exact).
 
-    Scatter/gather forms of the same idea measured 2.9-20x SLOWER on the
-    remote TPU (XLA lowers loop-carried-index gathers in a scan body
-    pathologically); this all-matmul/elementwise form runs within ~6% of
-    the swap-free sampler skeleton (RESULTS.md round 5).
+    This keeps loop-carried-index gathers out of the scan body.  Whether
+    it still beats ``make_ladder_step``'s gather form on a GPU is not
+    measured (ROADMAP C4).
 
     The sampled process is distributionally identical to
     make_ladder_step's (same proposal kernels, same swap rule, same
@@ -357,6 +372,8 @@ def make_perm_ladder_step(
     No logical mixing: the counting samplers run p_logical=0
     (decoders.py:146-153 use plain ladders).
 
+    ``engine``/``interpret`` as in ``make_ladder_step``.
+
     Returns ``step(pls, key, betas) -> (pls, keys_pos, n_xyz_pos,
     swap_acc)`` with keys/n_xyz in rung-position order; use
     ``perm_enter``/``perm_exit`` around the scan.
@@ -364,17 +381,15 @@ def make_perm_ladder_step(
     from ..ops.engines import resolve_engine
     from ..ops.pauli import make_hash_mults, pack_key
 
-    engine = resolve_engine(engine, "chain")
+    engine = resolve_engine(engine, "chain", spec)
     if exchange not in ("sequential", "even_odd"):
         raise ValueError(
             f"exchange={exchange!r}: expected 'sequential' or 'even_odd'"
         )
-    if engine == "sweep":
-        from ..ops.dense_sweep import make_dense_sweep
-
-        sweep_fn = make_dense_sweep(spec)
-    else:
+    if engine == "literal":
         update = make_chain_update(spec, iters, include_logical=False)
+    else:
+        sweeps = _make_sweeps(spec, iters, engine, interpret)
     mults = jnp.asarray(make_hash_mults(spec))
     rng_nc = jnp.arange(Nc, dtype=jnp.int32)
 
@@ -386,17 +401,18 @@ def make_perm_ladder_step(
 
         # chain j runs at rung pos[b, j]'s temperature (flat matmul)
         oh = (pos[:, :, None] == rng_nc[None, None, :]).astype(jnp.float32)
-        betas_chain = (oh.reshape(B * Nc, Nc) @ betas_j).reshape(B, Nc, 3)
+        # HIGHEST: a default-precision f32 matmul may round the betas to
+        # TF32 on the GPU (measured: 9e-4 absolute error on an H100)
+        betas_chain = jnp.dot(
+            oh.reshape(B * Nc, Nc), betas_j,
+            precision=jax.lax.Precision.HIGHEST,
+        ).reshape(B, Nc, 3)
 
         # 1) Metropolis on every rung (physical order, per-chain betas)
-        if engine == "sweep":
-            def body(s, k):
-                return sweep_fn(s, k, betas_chain), None
-
-            ks = jax.random.split(k_sweep, iters)
-            state, _ = jax.lax.scan(body, state, ks)
-        else:
+        if engine == "literal":
             state = update(state, k_sweep, betas_chain, 0.0)
+        else:
+            state = sweeps(state, k_sweep, betas_chain)
 
         # 2) Replica exchange on the rung indices
         n_phys = count_errors_xyz(state).astype(jnp.float32)  # (B, Nc, 3)

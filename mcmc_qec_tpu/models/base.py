@@ -1,6 +1,6 @@
 """Code-family specifications as static index tables.
 
-TPU-first design: instead of the reference's per-family numba kernels
+Batched design: instead of the reference's per-family numba kernels
 (reference: src/toric_model.py:174-377, src/planar_model.py:219-409,
 src/rotated_surface_model.py:198-420, src/xzzx_model.py:150-486), every code
 family compiles down to a small set of *static numpy tables* consumed by one

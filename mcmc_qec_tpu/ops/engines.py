@@ -1,36 +1,43 @@
 """Engine selection: map the user-facing ``engine`` knob to a concrete
 sampler implementation.
 
-``"auto"`` — the default on every decoder entry point and in
-``pipeline.RunConfig`` — resolves to the fastest path available for the
-decoder family on the current backend, so CLI/API defaults get production
-throughput out of the box (the reference has no such split: its only
-engine IS its production engine).  ``"literal"`` is the opt-in parity
-mode reproducing the reference's one-random-stabilizer-per-update cadence
-(src/mcmc.py:82-103) — useful for apples-to-apples statistical
-comparisons, ~3 orders of magnitude slower on TPU.
+``"auto"`` -- the default on every decoder entry point and in
+``pipeline.RunConfig`` -- resolves here, and only here, to the fastest
+path for the decoder family and code width on the current backend.
+``"literal"`` is the opt-in parity mode reproducing the reference's
+one-random-stabilizer-per-update cadence (src/mcmc.py:82-103) -- useful
+for apples-to-apples statistical comparisons, orders of magnitude slower.
 
 Concrete engines:
  - ``sweep``:  conflict-free-colored full sweeps via XLA (all backends)
- - ``pallas``: the Pallas sweep kernel (counting decoders; TPU only,
-   falls back to ``sweep`` elsewhere)
- - ``fused``:  the whole PT window in one Pallas VMEM kernel (PTEQ only;
-   TPU only, falls back to ``sweep`` when off-TPU or VMEM-bound)
+ - ``kernel``: the same sweeps in one Pallas kernel per call
+   (ops/sweep_kernel.py); compiled for NVIDIA GPUs only -- elsewhere the
+   builders raise unless asked for the Pallas interpreter explicitly
 """
 
 from __future__ import annotations
 
 import jax
 
-VALID_ENGINES = ("auto", "literal", "sweep", "pallas", "fused")
+from ..models.base import CodeSpec
+
+VALID_ENGINES = ("auto", "literal", "sweep", "kernel")
+
+# widest code (in qubits) for which "auto" picks the sweep kernel on a GPU,
+# per decoder family, from kernel-vs-XLA-sweep timings on an H100.  The PT
+# window runs ``iters`` sweeps per kernel call and gains up to toric d=13
+# (512 padded qubits, the kernel's limit); the counting samplers run one
+# sweep per call and gain at toric d=9 (256 padded qubits) but lose 2x at
+# d=13.
+_KERNEL_MAX_QUBITS = {"pteq": 512, "counting": 256}
 
 
-def resolve_engine(engine: str, kind: str) -> str:
-    """Resolve ``"auto"`` for a decoder family.
+def resolve_engine(engine: str, kind: str, spec: CodeSpec) -> str:
+    """Resolve ``"auto"`` for a decoder family on ``spec``'s code.
 
     kind: ``"pteq"`` (PT-ladder window decoders), ``"counting"``
-    (STDC/STRC droplet samplers), ``"chain"`` (plain ladder/static paths
-    with no specialized kernel).
+    (STDC/STRC droplet samplers and the PTDC/PTRC ladders: one sweep per
+    recorded step), ``"chain"`` (plain ladder/static paths).
     """
     if engine not in VALID_ENGINES:
         raise ValueError(
@@ -38,11 +45,7 @@ def resolve_engine(engine: str, kind: str) -> str:
         )
     if engine != "auto":
         return engine
-    if kind == "pteq":
-        # make_pallas_ladder_window falls back to the XLA sweep window
-        # off-TPU or when the fused state exceeds VMEM
-        return "fused"
-    if kind == "counting":
-        # make_sampler falls back to the dense sweep off-TPU
-        return "pallas" if jax.default_backend() == "tpu" else "sweep"
+    if (spec.nq <= _KERNEL_MAX_QUBITS.get(kind, 0)
+            and jax.default_backend() == "gpu"):
+        return "kernel"
     return "sweep"

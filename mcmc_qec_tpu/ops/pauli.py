@@ -103,7 +103,7 @@ def apply_stabilizers_uniform(
     state — the "rain" randomization (toric_model.py:299-314,
     planar_model.py:355-376).  Stabilizer application commutes under XOR, so
     the sequential reference loop reduces to one GF(2) mat-vec per bit plane
-    (MXU-friendly).
+    (matmul-friendly).
     """
     sel = jax.random.bernoulli(key, p, state.shape[:-1] + (spec.n_stabs,))
     masks = jnp.asarray(spec.stab_masks)

@@ -247,15 +247,36 @@ def test_pteq_sweep_engine_matches_exact_posterior():
 
 
 def test_stdc_pallas_engine_matches_exact_posterior():
+    """STDC's counting path with the Pallas sweep kernel (interpret mode
+    on the CPU): droplets sampled by the kernel, deduped and Boltzmann-
+    summed on device, must match the exact class posterior."""
+    from mcmc_qec_tpu.decoders.counting import make_sampler, z_direct_count
+    from mcmc_qec_tpu.decoders.counting import SampleStream
+    from mcmc_qec_tpu.ops.pauli import all_class_states, apply_stabilizers_uniform
+
     spec, s0 = _syndrome_state("planar", 3)
     exact = exact_class_posterior(spec, s0, betas_depolarizing(0.1), np_to_class)
-    # pallas engine runs in interpret mode on CPU via the raw path?  No —
-    # the sampler uses the compiled path; on CPU the pallas interpreter is
-    # engaged automatically only when interpret=True, so this test runs the
-    # kernel through pallas_call's CPU lowering.
-    distr = STDC(spec, s0[None], 0.1, p_sampling=0.25, droplets=4, steps=1500,
-                 engine="pallas")
-    assert tv(exact, distr[0] / 100.0) < 0.04, (exact, distr[0])
+    droplets, steps = 4, 1500
+    sampler = make_sampler(spec, steps, iters_per_step=1, engine="kernel",
+                           interpret=True)
+
+    @jax.jit
+    def run(s0, key):
+        seeds = all_class_states(spec, s0)  # (K, nq)
+        K = seeds.shape[0]
+        states = jnp.broadcast_to(seeds[:, None], (K, droplets, spec.nq))
+        k_rain, k_samp = jax.random.split(key)
+        states = apply_stabilizers_uniform(spec, states, k_rain, 0.5)
+        _, stream = sampler(states, k_samp,
+                            jnp.asarray(betas_depolarizing(0.25), jnp.float32))
+        merged = SampleStream(stream.keys.reshape(K, droplets * steps, 2),
+                              stream.n_xyz.reshape(K, droplets * steps, 3))
+        logz = z_direct_count(merged, jnp.asarray(betas_depolarizing(0.1),
+                                                  jnp.float32))
+        return jax.nn.softmax(logz)
+
+    distr = np.asarray(run(jnp.asarray(s0), jax.random.PRNGKey(0)))
+    assert tv(exact, distr) < 0.04, (exact, distr)
 
 
 def test_trivial_syndrome_decodes_to_identity_class():

@@ -68,7 +68,7 @@ def test_sharded_streaming_stdc_matches_unsharded():
     mesh = make_mesh()
     seeds = _class_seeds(spec, states)
     fn = _get_stdc_stream_fn(
-        spec, 2, 800, True, "off", 0.0, "auto", False, False, 4096,
+        spec, 2, 800, True, "off", 0.0, "auto", False, 4096,
         _pick_stream_window(2, 800),
     )
     distr = fn(
@@ -95,19 +95,16 @@ def test_graft_entry_multichip():
 
 
 def test_sharded_pallas_sweep_under_shard_map():
-    """The Pallas sweep kernel (the perf flagship) executing under the
-    8-device mesh via shard_map: each device runs the kernel on its local
-    batch shard.  Interpret mode on CPU (same kernel body; compiled on TPU).
-    The sweep must preserve every chain's syndrome and actually move
-    states."""
-    from functools import partial
-
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    """The Pallas sweep kernel under the 8-device mesh via shard_map: each
+    device runs the kernel (interpret mode on the CPU) on its local batch
+    shard with its own key.  Syndromes must be invariant and states must
+    move."""
+    from jax.sharding import PartitionSpec as P
     from jax import shard_map
 
     from mcmc_qec_tpu.models import np_syndrome
     from mcmc_qec_tpu.mcmc.ladder import betas_depolarizing
-    from mcmc_qec_tpu.ops.pallas_sweep import make_pallas_sweep
+    from mcmc_qec_tpu.ops.sweep_kernel import make_kernel_sweep
 
     spec = get_spec("toric", 5)
     mesh = make_mesh()
@@ -115,14 +112,13 @@ def test_sharded_pallas_sweep_under_shard_map():
     states = np.asarray(
         sample_depolarizing(jax.random.PRNGKey(3), spec, 0.15, (B,))
     )
-    _, raw = make_pallas_sweep(spec, n_sweeps=3, batch_tile=8, interpret=True)
+    kern = make_kernel_sweep(spec, 3, interpret=True)
     # hot sampling temperature so acceptance is high and the movement check
     # below is meaningful (cold chains legitimately sit still for sweeps)
     betas = jnp.asarray(betas_depolarizing(0.5), jnp.float32)
 
-    def local(states_shard, seeds_shard):
-        # per-shard seed so devices draw independent uniforms
-        return raw(states_shard, seeds_shard[0], betas)
+    def local(states_shard, keys_shard):
+        return kern(states_shard, keys_shard[0], betas)
 
     fn = jax.jit(
         shard_map(
@@ -131,82 +127,55 @@ def test_sharded_pallas_sweep_under_shard_map():
             out_specs=P("data"), check_vma=False,
         )
     )
-    seeds = np.arange(8, dtype=np.int32) * 1001 + 17
-    sharded = shard_batch(states, mesh)
-    out = np.asarray(fn(sharded, shard_batch(seeds, mesh)))
+    keys = jax.random.split(jax.random.PRNGKey(17), 8)
+    out = np.asarray(fn(shard_batch(states, mesh), shard_batch(keys, mesh)))
     assert out.shape == states.shape
     # every Metropolis move is a stabilizer application: syndromes invariant
     syn0 = np.stack([np_syndrome(spec, s) for s in states])
     syn1 = np.stack([np_syndrome(spec, s) for s in out])
     assert np.array_equal(syn0, syn1)
-    # at p_sampling=0.15 with 3 sweeps, essentially every chain moves
     assert (out != states).any(axis=-1).mean() > 0.9
 
 
 def test_sharded_fused_ladder_under_shard_map():
-    """The fused PTEQ-window kernel executing under a device mesh via
-    shard_map (interpret mode on CPU: validates the full fused dataflow —
-    sweeps, logical mixing, replica exchange, class readout — per shard;
-    statistics are TPU-tested in test_pallas_ladder.py).
-
-    Uses a 4-device sub-mesh: >4 concurrent emulated devices deadlock the
-    TPU interpreter's io_callback buffer allocation on small-CPU hosts
-    (threads block in np.array inside _allocate_buffer while the XLA CPU
-    thread pool is saturated); the compiled TPU path is unaffected."""
-    from jax.sharding import PartitionSpec as P
-    from jax import shard_map
-
+    """A PT ladder step with the sweep kernel (interpret mode on the CPU)
+    executing under the mesh with the batch sharded over ``data``: sweeps,
+    logical mixing, replica exchange and class readout per shard."""
     from mcmc_qec_tpu.models import np_syndrome
-    from mcmc_qec_tpu.mcmc.ladder import beta_ladder_depolarizing, init_ladder
-    from mcmc_qec_tpu.ops.pallas_ladder import make_pallas_ladder_window
+    from mcmc_qec_tpu.mcmc.ladder import (
+        LadderState,
+        beta_ladder_depolarizing,
+        init_ladder,
+        make_ladder_step,
+    )
 
     spec = get_spec("toric", 3)
-    mesh = make_mesh(4)
-    Nc, B, K = 3, 8, 16  # 2 syndromes per device
+    mesh = make_mesh()
+    Nc, B = 3, 16  # 2 syndromes per device
     states = np.asarray(
         sample_depolarizing(jax.random.PRNGKey(5), spec, 0.1, (B,))
     )
-    fused = make_pallas_ladder_window(
-        spec, Nc, window=4, iters=2, p_logical=0.5, tops_burn=1,
-        batch_tile=2, energy_chunk=2, interpret=True,
-    )
+    step = make_ladder_step(spec, Nc, iters=2, p_logical=0.5,
+                            engine="kernel", interpret=True)
     ls = init_ladder(spec, jnp.asarray(states), Nc)
+    ls = LadderState(*(shard_batch(x, mesh) for x in ls))
     betas = jnp.asarray(beta_ladder_depolarizing(0.1, Nc), jnp.float32)
-    weights = jnp.ones((3,), jnp.float32)
-
-    def local(state, flag, tops0, eq, sb, seeds):
-        return fused(state, flag, tops0, eq, sb, seeds[0], betas, weights)
-
-    fn = jax.jit(
-        shard_map(
-            local, mesh=mesh,
-            in_specs=(P("data"),) * 6,
-            out_specs=(P("data"),) * 5
-            + (P(None, "data"), P("data"), P("data"), P("data")),
-            check_vma=False,
-        )
-    )
-    out = fn(
-        shard_batch(ls.state, mesh), shard_batch(ls.flag, mesh),
-        shard_batch(ls.tops0, mesh),
-        shard_batch(jnp.zeros((B, K), jnp.int32), mesh),
-        shard_batch(jnp.zeros((B,), jnp.int32), mesh),
-        shard_batch(np.arange(4, dtype=np.int32) * 7 + 1, mesh),
-    )
-    st, fl, tp, eq, sb, en, ba, bf, sw = [np.asarray(x) for x in out]
-    assert st.shape == (B, Nc, spec.nq) and eq.shape == (B, K)
-    assert en.shape == (2, B)  # window=4, energy_chunk=2
+    ls, bottom_eq, n_xyz0, swap = jax.jit(step)(ls, jax.random.PRNGKey(1),
+                                                betas)
+    st = np.asarray(ls.state)
+    assert st.shape == (B, Nc, spec.nq) and bottom_eq.shape == (B,)
+    assert swap.shape == (B, Nc - 1)
     # stabilizer + logical moves preserve the syndrome on every rung
     syn0 = np.stack([np_syndrome(spec, s) for s in states])
     for r in range(Nc):
         synr = np.stack([np_syndrome(spec, st[b, r]) for b in range(B)])
         assert np.array_equal(synr, syn0), f"rung {r}"
     # exactly one top flag per ladder after the exchange sweep bookkeeping
-    assert (fl[:, -1] == 1).all()
+    assert (np.asarray(ls.flag)[:, -1] == 1).all()
 
 
 def test_multihost_degenerate_single_process(tmp_path):
-    """Single-process pod-slice path: shard covers everything, gathers are
+    """Single-process path: shard covers everything, gathers are
     identities, distributed_generate == generate."""
     from mcmc_qec_tpu.parallel import (
         allgather_rows,

@@ -25,7 +25,7 @@ SURFACE = {
         "make_chain_update", "make_sweep_stepper",
     ],
     "mcmc_qec_tpu.ops.dense_sweep": ["make_dense_sweep"],
-    "mcmc_qec_tpu.ops.pallas_sweep": ["make_pallas_sweep"],
+    "mcmc_qec_tpu.ops.sweep_kernel": ["make_kernel_sweep"],
     "mcmc_qec_tpu.mcmc": [
         "LadderState", "make_ladder_step", "beta_ladder_depolarizing",
         "beta_ladder_biased", "beta_ladder_alpha", "betas_xyz",

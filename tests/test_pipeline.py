@@ -235,7 +235,7 @@ def test_generate_retries_transient_failures(tmp_path, monkeypatch):
     def flaky(spec, c, states, seed, metrics=None):
         if fails["left"] > 0:
             fails["left"] -= 1
-            raise RuntimeError("simulated tunnel drop")
+            raise RuntimeError("simulated device fault")
         return real(spec, c, states, seed, metrics=metrics)
 
     monkeypatch.setattr(gen, "decode_batch", flaky)

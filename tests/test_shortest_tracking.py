@@ -2,12 +2,12 @@
 
 The reference walks every post-burn sample on the host, keeping per-class
 Python sets of chains at the running-minimum n_eff (unbounded, one
-set.add per step).  The TPU-native version keeps a ShortestState in the
+set.add per step).  The batched version keeps a ShortestState in the
 window scan carry: running min, count at the min, and a BOUNDED buffer of
 distinct 64-bit chain keys, deduped with O(U) vector compares — no
 per-step host traffic.  These tests pin the update rule to a host
 set-based oracle and exercise the decoder/checkpoint integration the old
-host loop excluded (fused engine, energy_chunk > 1, ckpt_dir).
+host loop excluded (engine choice, energy_chunk > 1, ckpt_dir).
 """
 
 import numpy as np
@@ -99,10 +99,9 @@ def test_shortest_buffer_contents_are_the_recorded_keys():
 
 
 def test_pteq_with_shortest_fused_request_and_chunked_energy():
-    """track_shortest no longer forces energy_chunk=1 or the non-fused
-    engine: an engine='fused' request (falls back to sweep off-TPU) with
-    energy_chunk=4 must still match the exact shortest-chain posterior
-    argmax at d=3."""
+    """track_shortest does not force energy_chunk=1 or an engine: the
+    default engine request with energy_chunk=4 must still match the exact
+    shortest-chain posterior argmax at d=3."""
     from mcmc_qec_tpu.decoders import PTEQ_alpha_with_shortest
     from mcmc_qec_tpu.models import get_spec, np_to_class
     from mcmc_qec_tpu.models.noise import sample_depolarizing
@@ -115,7 +114,7 @@ def test_pteq_with_shortest_fused_request_and_chunked_energy():
     res = PTEQ_alpha_with_shortest(
         spec, s0[None], 0.15, 2.0,
         PTEQConfig(max_steps=3000, window=200, TOPS=10, SEQ=2,
-                   engine="fused", energy_chunk=4), seed=1,
+                   engine="auto", energy_chunk=4), seed=1,
     )
     assert res.shortest_boltzmann.shape == (1, 4)
     assert abs(res.shortest_boltzmann.sum() - 100) < 1.0
@@ -148,14 +147,11 @@ def test_pteq_with_shortest_tiny_cap_sets_overflow_flag():
     assert abs(res.shortest_counts.sum() - 100) < 1.0
 
 
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="fused kernel needs pltpu PRNG")
-def test_fused_shortest_matches_sweep_on_tpu():
-    """The fused kernel's in-VMEM (class, energy, content-hash) traces +
-    on-device dedup scan must reproduce the sweep engine's shortest
-    distributions (RNG streams differ; replicated-batch comparison).
-    Last verified on-chip 2026-08-20: Boltzmann TV 0.000, counts TV 0.031
-    (xzzx d=3, B=8 replicated, 4000 steps)."""
+@pytest.mark.gpu
+def test_kernel_shortest_matches_sweep():
+    """With the sweep kernel inside the PT window, the on-device dedup scan
+    must reproduce the XLA sweep engine's shortest distributions (RNG
+    streams differ; replicated-batch comparison)."""
     from mcmc_qec_tpu.decoders import PTEQ_alpha_with_shortest
     from mcmc_qec_tpu.models import get_spec
     from mcmc_qec_tpu.models.noise import sample_depolarizing
@@ -166,7 +162,7 @@ def test_fused_shortest_matches_sweep_on_tpu():
     )[0]
     states = np.tile(s0[None], (8, 1))
     res = {}
-    for eng in ("sweep", "fused"):
+    for eng in ("sweep", "kernel"):
         res[eng] = PTEQ_alpha_with_shortest(
             spec, states, 0.15, 2.0,
             PTEQConfig(max_steps=4000, window=200, TOPS=10, SEQ=2,
@@ -174,7 +170,7 @@ def test_fused_shortest_matches_sweep_on_tpu():
         )
     for k in ("shortest_boltzmann", "shortest_counts"):
         a = getattr(res["sweep"], k).mean(0)
-        b = getattr(res["fused"], k).mean(0)
+        b = getattr(res["kernel"], k).mean(0)
         assert 0.5 * np.abs(a - b).sum() / 100 < 0.1, (k, a, b)
 
 
